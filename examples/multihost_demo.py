@@ -2,9 +2,8 @@
 """Multi-host (multi-process) sharded mapping demo.
 
 Runs the full frame update with the canvas sharded over a GLOBAL device mesh
-spanning several processes — the N-host scaling topology of BASELINE.md.  On
-real pods each host runs this with its own process_id and the mesh spans
-ICI+DCN; here it is validated with multi-process CPU + gloo collectives.
+spanning several processes, validated with multi-process CPU + gloo
+collectives (tests/test_multihost.py).
 
 Usage (per process):
     python examples/multihost_demo.py <process_id> <num_processes> \

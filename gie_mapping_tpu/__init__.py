@@ -1,12 +1,13 @@
-"""GIE-TPU: a TPU-native incremental occupancy-grid + Euclidean distance
-transform mapping engine (JAX/XLA/Pallas), with the capabilities of the
-CUDA/ROS reference engine GIE-mapping (RA-L 2022).
+"""GIE mapping engine: an incremental occupancy-grid + Euclidean distance
+transform mapping engine in JAX/XLA, with the capabilities of the CUDA/ROS
+reference engine GIE-mapping (RA-L 2022).  Runs on an NVIDIA GPU or the CPU
+(ops/backend.py).
 
 Layer map (top to bottom; see SURVEY.md §1 for the reference counterpart):
   models/    — sensor pipelines ("map makers") + the VolumetricMapper engine
-  ops/       — dense JAX/Pallas kernels: sensors, raycast, batch EDT, fusion,
+  ops/       — dense JAX ops: sensors, raycast, batch EDT, fusion,
                block allocation, incremental-EDT relaxation, streaming
-  parallel/  — device-mesh sharding of the mapping step (multi-chip/host)
+  parallel/  — device-mesh sharding of the mapping step (multi-device/host)
   runtime/   — host shell: datasets, CPU mirror map, native C++ helpers,
                logging, ground-truth checking
   utils/     — config, geometry, constants

@@ -1,6 +1,6 @@
 """Map state: the resident scrolling canvas + voxel-block archive.
 
-TPU-native replacement of the reference's GPU hash table + spinlock block
+Dense replacement of the reference's GPU hash table + spinlock block
 allocator (/root/reference/include/vox_hash/vhashing.h:20-628, blockalloc.h,
 lockset.h) and of the GlbHashMap manager
 (src/kernel/par_wave/glb_hash_map.cu:9-113):
@@ -51,10 +51,9 @@ def _dense_to_blocks(arr, canvas_blocks):
 # Resident-canvas state (v2): the authoritative working set is a scrolling
 # dense canvas; the block pool becomes an ARCHIVE for blocks that scroll out.
 #
-# Rationale (measured on TPU): materialising the whole canvas from the pool
-# every frame costs two full row-gather/row-scatter passes over ~3.6k blocks —
-# by far the dominant per-frame cost — while the robot crosses a block
-# boundary only every few frames.  Keeping the canvas resident makes the
+# Rationale: materialising the whole canvas from the pool every frame would
+# cost two full row-gather/row-scatter passes over ~3.6k blocks, while the
+# robot crosses a block boundary only every few frames.  Keeping the canvas resident makes the
 # common case (no crossing) completely free and reduces crossings to thin
 # slab archive/load transfers.  This is also the natural multi-chip layout:
 # the canvas stays sharded across the mesh between frames.
@@ -113,7 +112,7 @@ def shift_packed_coc(rows, delta):
     through.  Used at the canvas<->archive boundary: archive rows anchor
     cocs to their own block origin, canvas voxels to the canvas origin, so
     neither frame ever overflows int16 regardless of world extent (the
-    TPU-dense analogue of the reference's wave-range re-anchoring,
+    dense analogue of the reference's wave-range re-anchoring,
     local_batch.h:159-208)."""
     s16 = lambda v: (v.astype(jnp.int32) ^ 0x8000) - 0x8000
     cx = s16(rows[..., 1] & 0xFFFF)
@@ -148,12 +147,8 @@ _PACKED_DEFAULT = np.asarray(
 )
 
 # Archive rows are stored FLAT: one uint32[1536] word-row per block.  A
-# [B,512,3] leaf would make XLA pick a lanes=512 layout ({0,2,1:T(4,128)})
-# while the Pallas row-DMA kernels require the row-major [B,12,128] view —
-# every scroll then paid TWO full-archive layout copies at the kernel
-# boundary plus a while-carry copy (round-5 HLO finding: ~1.5 ms of the
-# 2.4 ms compact scroll at B=12k).  A 2-D [B,1536] leaf keeps the {1,0}
-# layout, making every kernel/row view a free bitcast.
+# 2-D [B,1536] leaf keeps the row-major {1,0} layout, so every row view is
+# a free bitcast and one archive row is one contiguous 6 KB copy.
 ROW_WORDS = VB_SIZE_ * 3
 _PACKED_DEFAULT_ROW = np.tile(_PACKED_DEFAULT, VB_SIZE_)
 
@@ -187,8 +182,7 @@ class MapState:
     arch_keys: jnp.ndarray   # int32 [B,3]
     n_arch: jnp.ndarray      # int32
     a_packed: jnp.ndarray    # uint32 [B,1536] FLAT packed word-rows (see
-    # pack_voxels / ROW_WORDS: [512,3] per-voxel payload flattened row-major;
-    # flat 2-D keeps the XLA layout bitcast-compatible with the Pallas row DMAs)
+    # pack_voxels / ROW_WORDS: [512,3] per-voxel payload flattened row-major)
     arch_dropped: jnp.ndarray  # int32
     # per-CELL (4x4x4 subblock) UPPER bound of stored dist_sq over observed
     # voxels — the change-gated EDT's cell-granular affected-region test
@@ -236,9 +230,7 @@ class MapState:
             arch_keys=jnp.full((B, 3), EMPTY_KEY, jnp.int32),
             n_arch=jnp.zeros((), jnp.int32),
             # device_put of a host array pins the canonical {1,0} row-major
-            # layout: a compiled broadcast here let XLA pick a transposed
-            # {0,1} device layout for the leaf, and every scroll then paid
-            # full-archive layout copies at the Pallas kernel boundary
+            # layout
             a_packed=jnp.asarray(
                 np.broadcast_to(_PACKED_DEFAULT_ROW,
                                 (B, ROW_WORDS)).copy()),
@@ -303,9 +295,8 @@ def scroll_canvas(state: MapState, new_origin_blk, cfg: MapConfig) -> MapState:
 def _compact_ids(flags_flat, s_max):
     """Indices of the (at most s_max) set flags, via one small sort.
 
-    Returns (ids int32 [s_max], valid bool [s_max]).  A sort of ~3.6k keys is
-    orders of magnitude cheaper on this part than a row scatter/gather with
-    3.6k indices (XLA serializes per index on TPU; examples/bench_archive_ops).
+    Returns (ids int32 [s_max], valid bool [s_max]): the later row
+    gather/scatter then touches s_max rows instead of every canvas block.
     """
     nb = flags_flat.shape[0]
     rank = jnp.arange(nb, dtype=jnp.int32)
@@ -316,11 +307,12 @@ def _compact_ids(flags_flat, s_max):
 
 
 def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
-               compact_rows: int | None = None,
-               compact_cols: int | None = None,
-               use_pallas: bool | None = None,
-               archive_pallas: bool | None = None,
-               shift_pallas: bool | None = None) -> MapState:
+               compact_rows: int | None = None) -> MapState:
+    with jax.named_scope("scroll"):
+        return _do_scroll_impl(state, new_origin_blk, cfg, compact_rows)
+
+
+def _do_scroll_impl(state, new_origin_blk, cfg, compact_rows):
     cb = cfg.canvas_blocks
     cs = cfg.canvas_size
     B = state.arch_keys.shape[0]
@@ -355,18 +347,8 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
     dropped = jnp.sum(need_new.astype(jnp.int32)) - granted
 
     # pack the whole canvas payload once: all archive traffic and the roll
-    # then touch ONE array (XLA row scatters cost per index per operand)
+    # then touch ONE array
     packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq, state.coc)
-
-    if use_pallas is None:
-        from .ops.edt_batch import _use_pallas
-        use_pallas = _use_pallas()
-
-    ncols = cb[0] * cb[1]
-    if compact_cols is None:
-        compact_cols = ncols
-    compact_cols = min(compact_cols, ncols)
-    jz = jnp.arange(cb[2], dtype=jnp.int32)
 
     # archive rows anchor cocs to their OWN block origin (canvas-rel minus
     # the block's canvas position); see shift_packed_coc
@@ -377,28 +359,6 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
             rows, -_block_pos_vox(jnp.arange(nb_all, dtype=jnp.int32), cb)[:, None, :])
         a_packed = state.a_packed.at[slot].set(
             rows.reshape(-1, ROW_WORDS), mode="drop")
-    elif use_pallas:
-        # DMA the moving (x,y) block-columns straight out of the dense
-        # canvas — no full-canvas block-major transpose (bench_scroll_bisect;
-        # host guarantees the exiting-column bound fits compact_cols)
-        from .ops.pallas.blockrows import gather_block_rows, scatter_archive_rows
-        cids, cidv = _compact_ids(
-            jnp.any(exits, axis=2).reshape(-1), compact_cols)
-        crows = gather_block_rows(packed, cids, cb)
-        bidx = cids[:, None] * cb[2] + jz[None, :]
-        crows = shift_packed_coc(
-            crows, -_block_pos_vox(bidx.reshape(-1), cb)[:, None, :])
-        cslot = jnp.where(cidv[:, None], slot[bidx], B).reshape(-1)
-        if archive_pallas is False:  # A/B toggle (examples/bench_scroll_ab)
-            a_packed = state.a_packed.at[cslot].set(
-                crows.reshape(-1, ROW_WORDS), mode="drop")
-        else:
-            # archive side also via Pallas row DMA: `.at[ids].set` row
-            # scatters pay a per-index floor (see blockrows docstring)
-            aval = cslot < B
-            a_packed = scatter_archive_rows(
-                state.a_packed, crows, jnp.where(aval, cslot, 0),
-                aval.astype(jnp.int32))
     else:
         # ordinary scrolls move out only thin slabs: touch exactly those rows
         # (host guarantees the exiting-block bound fits compact_rows)
@@ -426,65 +386,7 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
         mask = exposed[(...,) + (None,) * (arr.ndim - 3)]
         return jnp.where(mask, jnp.asarray(fill, arr.dtype), out)
 
-    if shift_pallas is None:
-        shift_pallas = use_pallas
-    if shift_pallas:
-        # ONE read + ONE write (ops/pallas/blockrows.shift_canvas_pallas):
-        # the XLA formulation below materialises one full-canvas pass PER
-        # AXIS (~282 B/voxel audited with the pack/unpack chain,
-        # examples/hlo_scroll_audit.py).  x/y displacement rides the
-        # scalar-prefetched index_map; the z displacement is a static lane
-        # rotation dispatched by a switch over |zb| <= 2 block z-scrolls.
-        # Larger z jumps (teleport class) take the COMPOSED arm: the same
-        # Pallas xy pass + ONE dynamic lane roll for z — 2 materialisations
-        # instead of the 3-axis XLA chain, removing the old fallback cliff
-        # on exactly the frames that are already the most expensive
-        # (VERDICT r3 item 6).
-        from .ops.pallas.blockrows import shift_canvas_pallas
-
-        X_, Y_, Z_ = cs
-        L_ = 3 * Z_
-        LW_ = 3 * VB_WIDTH
-        defaults = jnp.tile(jnp.asarray(_PACKED_DEFAULT, jnp.uint32),
-                            Z_).reshape(1, 1, L_)
-        cvv = packed.reshape(X_, Y_, L_)
-
-        def mk(zk):
-            return lambda c: shift_canvas_pallas(c, defaults, shift_blk,
-                                                 zshift_blk=zk,
-                                                 reanchor_blk=shift_blk)
-
-        def composed(c):
-            # rolling by a multiple of LW_ maps default lanes onto default
-            # lanes, so xy-shift-then-z-roll composes exactly; out-of-range
-            # z (|zb| >= cbz, incl. the single-z-block canvas) falls out as
-            # all-defaults through the lane mask.  reanchor uses the FULL
-            # shift (incl. z) — coc re-anchor is per-voxel value arithmetic,
-            # independent of which pass moves the voxel.
-            shifted = shift_canvas_pallas(c, defaults,
-                                          shift_blk.at[2].set(0),
-                                          zshift_blk=0,
-                                          reanchor_blk=shift_blk)
-            zl = shift_blk[2] * LW_
-            rolled = jnp.roll(shifted, -zl, axis=2)
-            lane = jnp.arange(L_, dtype=jnp.int32)
-            ok = (lane + zl >= 0) & (lane + zl < L_)
-            return jnp.where(ok[None, None, :], rolled, defaults)
-
-        zb = shift_blk[2]
-        zmax = min(2, Z_ // VB_WIDTH - 1)
-        if zmax >= 1:
-            arms = ([composed] + [mk(z) for z in range(-zmax, zmax + 1)]
-                    + [composed])
-            zsel = jnp.clip(zb, -(zmax + 1), zmax + 1) + (zmax + 1)
-        else:
-            # single-z-block canvas: any z shift empties the z extent
-            arms = [mk(0), composed]
-            zsel = jnp.where(zb == 0, 0, 1).astype(jnp.int32)
-        cvv = jax.lax.switch(zsel, arms, cvv)
-        packed = cvv.reshape(cs + (3,))
-    else:
-        packed = shift_nd(packed, jnp.asarray(_PACKED_DEFAULT), sv, cs)
+    packed = shift_nd(packed, jnp.asarray(_PACKED_DEFAULT), sv, cs)
     present = shift_nd(state.present[..., None], False, shift_blk, cb)[..., 0]
     # cell-granular dist bound rolls with the canvas (block shifts are
     # multiples of 2 cells).  Exposed cells whose content resets to UNKNOWN
@@ -519,28 +421,6 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
         pblocks = _canvas_as_blocks(packed, cb)
         pblocks = jnp.where(entering[..., None, None, None, None], rows_in, pblocks)
         packed = _blocks_to_dense(pblocks, cb)
-    elif use_pallas:
-        # DMA entering rows straight into the rolled canvas by block-column;
-        # invalid entries park at a non-entering column (exists: entering
-        # columns can only cover the canvas when every entry is valid) and
-        # rewrite it unchanged
-        from .ops.pallas.blockrows import (gather_archive_rows,
-                                           scatter_block_rows)
-        enter_cols = jnp.any(entering, axis=2).reshape(-1)
-        cids2, cidv2 = _compact_ids(enter_cols, compact_cols)
-        park = jnp.argmin(enter_cols).astype(jnp.int32)
-        colv = jnp.where(cidv2, cids2, park)
-        bidx2 = cids2[:, None] * cb[2] + jz[None, :]
-        valid_b = entering.reshape(-1)[bidx2] & cidv2[:, None]
-        slot_b = jnp.where(valid_b, gslot[bidx2], 0)
-        if archive_pallas is False:
-            grows = _rows3(a_packed[slot_b.reshape(-1)])
-        else:
-            grows = gather_archive_rows(a_packed, slot_b.reshape(-1))
-        tgt = (colv[:, None] * cb[2] + jz[None, :]).reshape(-1)
-        grows = shift_packed_coc(grows, _block_pos_vox(tgt, cb)[:, None, :])
-        packed = scatter_block_rows(
-            packed, grows, colv, valid_b.astype(jnp.int32).reshape(-1), cb)
     else:
         ids2, idv2 = _compact_ids(entering.reshape(-1), compact_rows)
         grows = _rows3(a_packed[jnp.where(idv2, gslot[ids2], 0)])
@@ -552,20 +432,16 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
     present = present | entering
 
     occ_val, vox_type, dist_sq, coc = unpack_voxels(packed)
-    if not shift_pallas:
-        # re-anchor to the new canvas origin: entering blocks were written
-        # new-anchored above; surviving voxels shift by -sv.  (The Pallas
-        # shift kernel re-anchors survivors IN the shift pass —
-        # reanchor_blk above — so this full-canvas fix-up only exists on
-        # the XLA fallback path.)
-        enter_vox = jnp.repeat(
-            jnp.repeat(jnp.repeat(entering, VB_WIDTH, 0), VB_WIDTH, 1),
-            VB_WIDTH, 2)
-        cvalid = coc[..., 0] != COC_INVALID16
-        adj = jnp.where(enter_vox[..., None], 0, sv.astype(jnp.int32))
-        coc = jnp.where(cvalid[..., None],
-                        (coc.astype(jnp.int32) - adj).astype(jnp.int16),
-                        jnp.int16(COC_INVALID16))
+    # re-anchor to the new canvas origin: entering blocks were written
+    # new-anchored above; surviving voxels shift by -sv
+    enter_vox = jnp.repeat(
+        jnp.repeat(jnp.repeat(entering, VB_WIDTH, 0), VB_WIDTH, 1),
+        VB_WIDTH, 2)
+    cvalid = coc[..., 0] != COC_INVALID16
+    adj = jnp.where(enter_vox[..., None], 0, sv.astype(jnp.int32))
+    coc = jnp.where(cvalid[..., None],
+                    (coc.astype(jnp.int32) - adj).astype(jnp.int16),
+                    jnp.int16(COC_INVALID16))
 
     return dataclasses.replace(
         state,
@@ -580,18 +456,16 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
     )
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "k_cols", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg", "k_cols"))
 def stream_extract(state: MapState, changed_blk, carry_blk, rot=0, *,
-                   cfg: MapConfig, k_cols: int,
-                   use_pallas: bool | None = None):
+                   cfg: MapConfig, k_cols: int):
     """Compact changed voxel blocks into archive-format rows for D2H
     streaming (streamPipeline equivalent, glb_hash_map.cu:209-247).
 
     The reference issues one small cudaMemcpy per changed block after a
     thrust sort/unique; here the changed set is compacted to (x,y)
-    block-COLUMN granularity (the Pallas archive-I/O unit — per-row XLA
-    gathers pay a multi-ms per-index floor on this part) and extracted as
-    packed uint32 rows in ONE kernel.  The host starts an async copy and
+    block-COLUMN granularity and extracted as packed uint32 rows in one
+    gather.  The host starts an async copy and
     ingests the rows on the NEXT visualization tick, so the transfer rides
     under subsequent frame dispatches instead of stalling the pipeline.
 
@@ -627,15 +501,9 @@ def stream_extract(state: MapState, changed_blk, carry_blk, rot=0, *,
     served = col_changed & (key <= skey[k_cols - 1])
     leftover = want & ~served.reshape(cbx, cby, 1)
 
-    packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq, state.coc)
-    if use_pallas is None:
-        from .ops.edt_batch import _use_pallas
-        use_pallas = _use_pallas()
-    if use_pallas:
-        from .ops.pallas.blockrows import gather_block_rows
-
-        rows = gather_block_rows(packed, ids, cb)
-    else:
+    with jax.named_scope("stream_extract"):
+        packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq,
+                             state.coc)
         bv = _dense_to_blocks(packed, cb).reshape(ncols, cbz, VB_SIZE_, 3)
         rows = bv[ids].reshape(k_cols * cbz, VB_SIZE_, 3)
     blk_mask = want.reshape(ncols, cbz)[ids] & valid[:, None]
@@ -667,9 +535,8 @@ def canvas_geometry(cfg: MapConfig, pvt: np.ndarray, motion=None):
     motion direction, so straight-line travel covers ~2*bias the distance
     between scrolls that centred placement gives.  bias=0.5 reproduces the
     centred split; the 0.75 default keeps a 25% reserve behind the robot so
-    an immediate reversal doesn't scroll straight back (host-side sim over
-    the suite trajectories: ugv 143 -> 95 scrolls / 8 loops, scan2D
-    95 -> 64 at 0.9, no case worse — examples/sim_scroll_policy.py).
+    an immediate reversal doesn't scroll straight back (a host-side sim
+    over the suite trajectories counted ugv 143 -> 95 scrolls / 8 loops).
     Placement is an implementation detail: window contents are pinned by
     tests regardless of where the canvas sits.
     """

@@ -1,6 +1,6 @@
 """The jitted per-frame map-update pipeline (resident-canvas architecture).
 
-TPU-native equivalent of the reference's publishMap hot path
+Equivalent of the reference's publishMap hot path
 (/root/reference/src/volumetric_mapper.cpp:138-224): one XLA program per frame
 covering canvas scrolling, block allocation, occupancy fusion, batch local
 EDT, reconciliation, raise/lower fixed-point relaxation, frontier extraction
@@ -43,18 +43,16 @@ from ..utils.constants import (
 )
 
 
-# 5/16 rung added round 5 (VERDICT r4 item 8): depthcam-class steady slabs
-# need 0.22-0.28 of the canvas, straddling the old 3/16 -> 3/8 jump;
-# the interleaved A/B measured 1.037x on the suite depthcam workload with
-# identical (renumbered) levels (bench_artifacts/gate_rung_ab_20260821.jsonl)
+# depthcam-class steady slabs need 0.22-0.28 of the canvas (the 5/16 rung);
+# cow-class ~0.58-0.60 (the 5/8 rung)
 DEFAULT_MENU_FRACS = ((3, 16), (5, 16), (3, 8), (5, 8))
 
 
 def _slab_menu(canvas_size, fracs=DEFAULT_MENU_FRACS):
     """Static (SX, SY) slab-size ladder for the change-gated EDT: ~3/16,
     5/16, 3/8 and 5/8 of the canvas per axis (multiples of 8, ascending).
-    The fractions come from the measured affected-slab distributions
-    (examples/probe_gate_slab.py): depthcam-class frames need ~0.25-0.30,
+    The fractions come from measured affected-slab distributions:
+    depthcam-class frames need ~0.25-0.30,
     cow-class steady state ~0.58-0.60; anything larger takes the full
     branch.  `fracs` is overridable per config (cfg.edt_gate_menu)."""
     X, Y, _ = canvas_size
@@ -77,7 +75,7 @@ def p1_cache_enabled(cfg) -> bool:
     Single source of truth for MapState.create's buffer sizing AND the
     merge's use — a mesh additionally disables USE at merge time (the canvas
     x axis is sharded; the cache path is single-device)."""
-    from ..ops.pallas.phase1 import phase1_fits
+    from ..ops.edt_batch import phase1_fits
 
     X, Y, Z = cfg.canvas_size
     return (cfg.merge_mode == "canvas_edt" and cfg.edt_gate
@@ -224,10 +222,9 @@ def _gated_canvas_merge(state, canvas_type, old_type, new_type_win,
     # at all, the exact EDT output is a constant (no envelope can find a
     # site), so those frames take a dedicated constant-fill branch instead
     # of paying the full sweeps — the genuine full recompute happens only
-    # on the single frame where sites REappear after an epoch.  This is the
-    # force-full cliff the teleport bench hits: a jump into open space made
-    # EVERY subsequent frame pay the full EDT until an obstacle was seen
-    # (bench_artifacts/teleport_20260821.jsonl).
+    # on the single frame where sites REappear after an epoch (without it,
+    # a jump into open space made EVERY subsequent frame pay the full EDT
+    # until an obstacle was seen).
     any_site_new = jnp.any(canvas_type == VOX_OCCUPIED)
     any_site_old = jnp.any(old_type == VOX_OCCUPIED)
     force_full = ~(any_site_new & any_site_old)
@@ -327,8 +324,7 @@ def _gated_canvas_merge(state, canvas_type, old_type, new_type_win,
             (state.p1c, canvas_type))
 
     # ---- branches --------------------------------------------------------
-    ekw = dict(max_width=sum(canvas_size), env_variant=cfg.edt_env_variant,
-               p1=cfg.edt_phase1)
+    ekw = dict(max_width=sum(canvas_size))
 
     def finalize_slab(dist_state_s, coc_state_s, slab, obs_s, pres_s, win_s):
         """keep_old + take select on slab crops (the slab-local mirror of
@@ -360,7 +356,6 @@ def _gated_canvas_merge(state, canvas_type, old_type, new_type_win,
                 pblk, (ox // 8, oy // 8, 0), (SX // 8, SY // 8, Z // 8)))
             if mesh is None:
                 slab = batch_edt_slab(ctype, ox, oy, sx=SX, sy=SY,
-                                      mid=cfg.edt_mid,
                                       p1_packed=p1c_new if use_p1c else None,
                                       **ekw)
             else:
@@ -421,8 +416,8 @@ def _gated_canvas_merge(state, canvas_type, old_type, new_type_win,
             # reuse the freshly patched/rebuilt phase-1 cache: without it,
             # full-recompute frames with the cache on would scan phase 1
             # TWICE (once for the cache, once inside batch_edt)
-            full = batch_edt(ctype, mid=cfg.edt_mid,
-                             p1_packed=p1c_new if use_p1c else None, **ekw)
+            full = batch_edt(ctype, p1_packed=p1c_new if use_p1c else None,
+                             **ekw)
         else:
             full = batch_edt_sharded(ctype, mesh=mesh, **ekw)
         win_s = window_mask
@@ -661,23 +656,20 @@ def merge_frame_impl(
         # Replaces the reference's batch-EDT + MarkLimitedObserve +
         # raise/lower wavefront composition (local_edt_core.h +
         # unify_helper.cuh:201-446 + wave_core.cuh) with a single dense
-        # 3-phase transform over the CURRENT observed-occupied set: on TPU
-        # the active region is bounded and dense, so an exact recompute is
+        # 3-phase transform over the CURRENT observed-occupied set: the
+        # active region is bounded and dense, so an exact recompute is
         # both cheaper than iterating the wavefront fixed point and more
         # accurate (true Voronoi; disappeared obstacles — the raise wave —
         # fall out automatically because the site set is the live occupancy).
         from ..ops.edt_batch import batch_edt_sharded, sharded_edt_ok
 
         if sharded_edt_ok(canvas_size, mesh):
-            # shard_map + all_to_all phase boundaries: per-device Pallas
-            # envelopes on local shards (GSPMD would replicate the kernel)
+            # shard_map + all_to_all phase boundaries: per-device envelopes
+            # on local shards (GSPMD would replicate a kernel)
             full = batch_edt_sharded(canvas_type, max_width=sum(canvas_size),
-                                     mesh=mesh, env_variant=cfg.edt_env_variant,
-                                     p1=cfg.edt_phase1)
+                                     mesh=mesh)
         else:
-            full = batch_edt(canvas_type, max_width=sum(canvas_size),
-                             env_variant=cfg.edt_env_variant,
-                             p1=cfg.edt_phase1, mid=cfg.edt_mid)
+            full = batch_edt(canvas_type, max_width=sum(canvas_size))
         new_dist = jnp.where(full["valid"], full["dist_sq"], EMPTY_VALUE)
         # cocs are stored canvas-relative (map_state docstring): batch_edt's
         # canvas indices ARE the stored representation
@@ -699,9 +691,7 @@ def merge_frame_impl(
         relax_iters = jnp.int32(0)
     else:
         # ---- iterative wavefront-equivalent path ("relax") ---------------
-        batch = batch_edt(glb_type, max_width=cfg.max_width,
-                          env_variant=cfg.edt_env_variant, p1=cfg.edt_phase1,
-                          mid=cfg.edt_mid)
+        batch = batch_edt(glb_type, max_width=cfg.max_width)
         seed_dist, seed_coc = reconcile_window(
             batch, win(state.dist_sq), win(state.coc), glb_type, win_off,
             local_size
@@ -952,8 +942,8 @@ def frame_step(state, pose, fence_ll, fence_ur, fence_active, fence_n,
     """Low-latency per-frame entry used by the mapper (merge_frame with the
     per-frame scalars packed).
 
-    Every small host->device transfer is a separate ~0.2-0.35 ms enqueue on
-    remote links, so ALL per-frame pose data rides ONE float32 [7,3] array:
+    Every small host->device transfer is a separate enqueue, so ALL
+    per-frame pose data rides ONE float32 [9,3] array:
     rows 0-2 the integer pvt / canvas_origin_blk / win_off (exact in f32),
     rows 3-5 the sensor rotation, row 6 the sensor origin.  With
     fuse_raycast the sensor->world point transform runs in-program too,
@@ -966,8 +956,8 @@ def frame_step(state, pose, fence_ll, fence_ur, fence_active, fence_n,
     if fuse_raycast:
         inst_type = jnp.zeros(cfg.local_size, jnp.int8)
         ray_count = jnp.zeros(cfg.local_size, jnp.int32)
-        kw = dict(points=points @ rot.T + origin, pts_valid=pts_valid,
-                  sensor_origin=origin)
+        kw = dict(points=geo.rigid_transform(points, rot, origin),
+                  pts_valid=pts_valid, sensor_origin=origin)
     elif sensor_kind is not None:
         inst_type, ray_count = _fused_sensor(
             sensor_kind, sensor_data, rot, origin, s1, s2, pvt, cfg)
@@ -980,8 +970,7 @@ def frame_step(state, pose, fence_ll, fence_ur, fence_active, fence_n,
 
 @partial(jax.jit,
          static_argnames=("cfg", "input_pointcloud", "mesh", "use_fence",
-                          "fuse_raycast", "sensor_kind", "compact_rows",
-                          "compact_cols"),
+                          "fuse_raycast", "sensor_kind", "compact_rows"),
          donate_argnums=(0,))
 def scroll_frame_step(state, pose, fence_ll, fence_ur, fence_active,
                       fence_n, inst_type=None, ray_count=None, points=None,
@@ -990,24 +979,22 @@ def scroll_frame_step(state, pose, fence_ll, fence_ur, fence_active,
                       mesh=None, use_fence: bool = True,
                       fuse_raycast: bool = False,
                       sensor_kind: str | None = None,
-                      compact_rows: int | None = None,
-                      compact_cols: int | None = None):
+                      compact_rows: int | None = None):
     """frame_step with the compacted canvas scroll fused in: on block-crossing
     frames this replaces the scroll_step + frame_step dispatch pair with ONE
-    program, letting XLA overlap archive I/O with the frame's early passes and
-    saving a link round trip.  The target canvas origin rides pose row 1."""
+    program, letting XLA overlap archive I/O with the frame's early passes.
+    The target canvas origin rides pose row 1."""
     from ..map_state import _do_scroll
 
     pvt, origin_blk, off, rot, origin, s1, s2 = _unpack_pose(pose)
     enter_shift = (origin_blk - state.origin_blk) * VB_WIDTH
-    state = _do_scroll(state, origin_blk, cfg, compact_rows=compact_rows,
-                       compact_cols=compact_cols)
+    state = _do_scroll(state, origin_blk, cfg, compact_rows=compact_rows)
     kw = {}
     if fuse_raycast:
         inst_type = jnp.zeros(cfg.local_size, jnp.int8)
         ray_count = jnp.zeros(cfg.local_size, jnp.int32)
-        kw = dict(points=points @ rot.T + origin, pts_valid=pts_valid,
-                  sensor_origin=origin)
+        kw = dict(points=geo.rigid_transform(points, rot, origin),
+                  pts_valid=pts_valid, sensor_origin=origin)
     elif sensor_kind is not None:
         inst_type, ray_count = _fused_sensor(
             sensor_kind, sensor_data, rot, origin, s1, s2, pvt, cfg)
@@ -1042,7 +1029,7 @@ def replay_frames(state, poses, scrolled, *args, has_scrolls: bool = True,
 @partial(jax.jit,
          static_argnames=("cfg", "input_pointcloud", "use_fence",
                           "fuse_raycast", "sensor_kind", "compact_rows",
-                          "compact_cols", "mesh", "has_scrolls"),
+                          "mesh", "has_scrolls"),
          donate_argnums=(0,))
 def _replay_frames_impl(state, poses, scrolled, fence_ll, fence_ur, fence_active,
                   fence_n, inst_type=None, ray_count=None, points=None,
@@ -1050,29 +1037,26 @@ def _replay_frames_impl(state, poses, scrolled, fence_ll, fence_ur, fence_active
                   cfg: MapConfig, input_pointcloud: bool,
                   use_fence: bool = True, fuse_raycast: bool = False,
                   sensor_kind: str | None = None,
-                  compact_rows: int | None = None,
-                  compact_cols: int | None = None, mesh=None,
+                  compact_rows: int | None = None, mesh=None,
                   has_scrolls: bool = True):
     """Throughput/replay mode: K frames in ONE jitted `lax.scan` program.
 
     The per-frame entries (frame_step / scroll_frame_step) pay one
-    host->device dispatch each — on a remote link that enqueue cost dominates
-    the engine itself (examples/bench_dispatch.py: the raw dispatch floor is
-    several ms/frame while the device work is ~1-2 ms).  For offline map
+    host->device dispatch each.  For offline map
     building from recorded logs (the reference's own evaluation mode: rosbag
     replay, README.md:102-145) the poses are known ahead, so the host
     pre-computes each frame's window geometry and scroll decision and the
     whole batch runs as one scan: per-frame cost drops to pure device time.
 
-    Scrolls run INSIDE the scan via `lax.cond` over the compacted Pallas
-    archive path (`compact_rows`/`compact_cols` bound the moved block slabs;
+    Scrolls run INSIDE the scan via `lax.cond` over the compacted archive
+    path (`compact_rows` bounds the moved block rows;
     the mapper verifies every scroll in the batch fits and falls back to the
     per-frame path otherwise).  State evolution is bit-identical to the
     per-frame loop (tests/test_replay_batch.py).
 
     `has_scrolls=False` (static) compiles the scan body WITHOUT the scroll
     cond: a traced `lax.cond` identity branch copies every carried canvas
-    buffer each iteration (CLAUDE.md round-1 finding), so scroll-free runs
+    buffer each iteration, so scroll-free runs
     — stationary robots, slow sensors, the frozen-state engine A/B — pay a
     full-state copy per frame for nothing.  The mapper passes it per run
     from the host-side plan; callers setting it must pass scrolled=False
@@ -1095,8 +1079,7 @@ def _replay_frames_impl(state, poses, scrolled, fence_ll, fence_ur, fence_active
     def scroll_branch(op):
         s, mask, origin_blk = op
         shift = origin_blk - s.origin_blk
-        s2 = _do_scroll(s, origin_blk, cfg, compact_rows=compact_rows,
-                        compact_cols=compact_cols)
+        s2 = _do_scroll(s, origin_blk, cfg, compact_rows=compact_rows)
         return s2, shift_block_mask(mask, shift)
 
     SCALAR_YS = ("relax_iters", "fnt_count", "arch_dropped", "gate_level",
@@ -1118,7 +1101,7 @@ def _replay_frames_impl(state, poses, scrolled, fence_ll, fence_ur, fence_active
         if fuse_raycast:
             inst = jnp.zeros(cfg.local_size, jnp.int8)
             cnt = jnp.zeros(cfg.local_size, jnp.int32)
-            kw = dict(points=xs["points"] @ rot.T + origin,
+            kw = dict(points=geo.rigid_transform(xs["points"], rot, origin),
                       pts_valid=xs["pts_valid"], sensor_origin=origin)
         elif sensor_kind is not None:
             inst, cnt = _fused_sensor(
@@ -1164,22 +1147,17 @@ def _replay_frames_impl(state, poses, scrolled, fence_ll, fence_ur, fence_active
     return state, last_out, changed_union, per_frame
 
 
-@partial(jax.jit, static_argnames=("cfg", "compact_rows", "compact_cols"),
+@partial(jax.jit, static_argnames=("cfg", "compact_rows"),
          donate_argnums=(0,))
 def scroll_step(state: MapState, new_origin_blk, *, cfg: MapConfig,
-                compact_rows: int | None = None,
-                compact_cols: int | None = None) -> MapState:
+                compact_rows: int | None = None) -> MapState:
     """Host-gated canvas scroll: called only when the canvas origin actually
     moves (a block crossing), so the common frame pays nothing.
 
     compact_rows: when the host knows the exiting/entering block count is
     bounded (ordinary +-1-block scrolls move thin slabs), the archive
-    put/get runs over a compacted id list of this static size — row
-    scatter/gather cost on this part is per-index, so touching ~200 rows
-    instead of all ~3.6k canvas blocks cuts the scroll's dominant cost.
-    compact_cols: the same bound in (x,y) block-columns — the unit of the
-    Pallas archive-I/O kernels used on TPU (ops/pallas/blockrows.py)."""
+    put/get runs over a compacted id list of this static size: ~200 rows
+    instead of all ~3.6k canvas blocks."""
     from ..map_state import _do_scroll
 
-    return _do_scroll(state, new_origin_blk, cfg, compact_rows=compact_rows,
-                      compact_cols=compact_cols)
+    return _do_scroll(state, new_origin_blk, cfg, compact_rows=compact_rows)

@@ -1,7 +1,7 @@
-// Native host runtime of the GIE-TPU mapping engine.
+// Native host runtime of the GIE mapping engine.
 //
 // The reference implements its host-side runtime in C++ (ROS node +
-// PCL/FLANN helpers); the TPU build keeps the same split: JAX/XLA owns the
+// PCL/FLANN helpers); this engine keeps the same split: JAX/XLA owns the
 // device compute path, this library owns the host-side subsystems:
 //
 //  * DBSCAN clustering + AABB extraction for the external-observer channel

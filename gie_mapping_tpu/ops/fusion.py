@@ -1,6 +1,6 @@
 """Occupancy fusion primitives.
 
-TPU-native counterparts of the per-voxel fusion math used by
+Counterparts of the per-voxel fusion math used by
 updateHashOGMWithPntCld / updateHashOGMWithSensor
 (/root/reference/src/kernel/par_wave/unify_helper.cuh:35-197).  The kernels
 themselves are assembled in models/pipeline.py as dense window updates; this

@@ -1,6 +1,6 @@
 """Incremental global EDT: reconciliation + masked fixed-point relaxation.
 
-TPU-native redesign of the reference's three level-synchronous BFS wavefronts
+Dense redesign of the reference's three level-synchronous BFS wavefronts
 (raise_outside / lower_outside / lower_inside,
 /root/reference/src/kernel/par_wave/wave_core.cuh:103-393, wave_helper.h:8-93)
 and their seeding/merge kernels (unify_helper.cuh:201-523):
@@ -106,9 +106,7 @@ def invalidate_disappeared(dist, coc, outside_mask, stale_coc, dead_win,
     That is exactly a flood over the stale coc field: seed at the dead sites'
     own voxels, and each sweep extends the raised set to 6-neighbours whose
     stale coc equals the raised voxel's.  This keeps the raise pass entirely
-    gather-free — the previous formulation looked up `glb_type[coc[v]]` per
-    canvas voxel, a canvas-sized XLA gather with a pathological per-index
-    floor on TPU.  Faithfulness note: like the reference's wave (and unlike
+    gather-free (no per-voxel `glb_type[coc[v]]` lookup).  Faithfulness note: like the reference's wave (and unlike
     the old one-shot lookup), only stale-coc-CONNECTED voxels are reached;
     disconnected fragments of a dead site's discrete Voronoi cell keep their
     stale value until re-lowered.

@@ -1,11 +1,11 @@
 """Device-mesh sharding of the mapping engine.
 
 The reference is single-GPU with no distributed backend (SURVEY.md §2 P9);
-multi-chip scale-out is a first-class requirement of the TPU build:
+multi-device scale-out is first-class here:
 
 * the **canvas** (dense working region of the incremental EDT) is sharded
   along its x axis over the mesh — every relaxation sweep's 6-neighbour
-  shifts become XLA-inserted halo exchanges over ICI (collective-permute),
+  shifts become XLA-inserted halo exchanges (collective-permute),
   and the convergence flag is an implicit psum (jnp.any over a sharded
   array);
 * the **block pool** is sharded along the block axis, spreading global-map

@@ -188,7 +188,7 @@ def circular_trajectory(n_frames=20, radius=2.0, height=1.0, closed=False):
     closed: spread the frames over the FULL circle so frame n-1 is adjacent
     to frame 0 — replaying the sequence wraps with an ordinary scroll
     instead of a teleport-scale jump (bench passes then plan as one scan
-    program; see examples/bench_throttle_quantum.py)."""
+    program)."""
     out = []
     for i in range(n_frames):
         a = 2 * np.pi * i / max(n_frames, 1) * (1.0 if closed else 0.5)

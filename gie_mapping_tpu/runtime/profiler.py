@@ -2,9 +2,9 @@
 
 Counterpart of the reference's wall-clock brackets + explicit device syncs
 ("only for profiling", /root/reference/src/volumetric_mapper.cpp:153,186-203)
-and its CSV log.  TPU-native: stage timers force completion via
-block-until-ready on a designated output, and full XLA traces are captured
-with jax.profiler for xprof/tensorboard.
+and its CSV log: stage timers force completion by reading back a
+designated output, and full XLA traces are captured with jax.profiler for
+xprof/tensorboard (runtime/trace_metrics.py reduces them).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def xla_trace(log_dir: str):
-    """Capture an XLA/TPU profiler trace viewable in xprof/tensorboard."""
+    """Capture an XLA profiler trace viewable in xprof/tensorboard."""
     jax.profiler.start_trace(log_dir)
     try:
         yield

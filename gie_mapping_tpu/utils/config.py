@@ -1,6 +1,6 @@
 """Configuration system.
 
-TPU-native counterpart of the reference's ROS-param `Parameters` struct
+Counterpart of the reference's ROS-param `Parameters` struct
 (/root/reference/include/parameters.h:11-139) plus the five benchmark case
 presets shipped as cfg/*.yaml + launch files (see /root/repo/BASELINE.md).
 
@@ -101,76 +101,38 @@ class MapConfig:
     # sensor specifics
     valid_nan: bool = False  # realsense NaN->far policy (realsense_fast.cu:64-73)
 
-    # TPU-specific knobs (no reference counterpart)
+    # engine-specific knobs (no reference counterpart)
     max_raycast_points: int = 65536  # static per-frame point-cloud capacity
-    # "projective" = dense spherical min-range carve (TPU-native default);
+    # "projective" = dense spherical min-range carve (default);
     # "dda" = exact per-ray Amanatides-Woo walk (reference-faithful)
     raycast_mode: str = "projective"
     # fuse the projective raycast into the frame program (one dispatch; loses
     # cross-frame raycast/merge pipelining — off by default)
     fuse_raycast: bool = False
     # "canvas_edt" = one exact separable EDT over the dense canvas per frame
-    # (TPU-native default: cheaper than iterating and exactly the Voronoi
+    # (default: cheaper than iterating and exactly the Voronoi
     # limit the wavefronts converge to); "relax" = iterative fixed-point
     # relaxation mirroring the reference's raise/lower wavefront composition
     merge_mode: str = "canvas_edt"
-    # Envelope-kernel loop variant for the batch EDT ("base" | "mono" |
-    # "fusepay" | "mono+fusepay"); all are bit-identical on valid lanes.
-    # On-TPU interleaved A/B (bench_env_variants_ab, one run, compiles
-    # cached): "fusepay" wins every canvas class — cow-lady 5.75 vs 6.26,
-    # depthcam 22.54 vs 23.18, ugv 7.38 vs 8.91 ms; "mono" is mixed across
-    # runs (throttle-sensitive), so the single-loop fused payload select is
-    # the default everywhere.
-    edt_env_variant: str = "fusepay"
-    # EDT phase-1 implementation: "xla" (cummax/cummin cascade) or "pallas"
-    # (single-pass packed scan kernel, ops/pallas/phase1.py — one HBM read +
-    # one packed write instead of the log-depth reduce_window rewrite, and
-    # half the phase-2 reshard bytes).  Bit-identical outputs; only a TPU
-    # performance choice (the dense CPU fallback always uses XLA phase 1).
-    # DEFAULT "pallas": together with edt_mid this is the minimum-traffic
-    # "allin" chain — compiler-audited at 0.44-0.45x the default-chain HBM
-    # bytes on every canvas class (examples/hlo_traffic_audit.py,
-    # bench_artifacts/hlo_traffic_audit.jsonl), bit-exact on device
-    # (examples/tpu_sanity.py), neutral-or-better in throttled interleaved
-    # A/Bs (bench_edt_allin_ab).  Revert condition: a quiet-window
-    # (probe < 2.5 ms) A/B showing a regression.
-    edt_phase1: str = "pallas"
-    # transpose-free batched phase 3 (envelope along the middle axis):
-    # removes the [X,Z,Y]->[Z,X,Y] transpose pair between phases 2 and 3.
-    # TPU-only (ignored on CPU and by the sharded path, whose all_to_all
-    # reshard IS the transpose).
-    edt_mid: bool = True
-    # Change-gated canvas EDT (round 3): per frame, recompute the exact EDT
-    # only over the bounding slab of voxels this frame's occupancy changes
-    # can affect (models/pipeline.py::_gated_canvas_merge), splicing
-    # unchanged state through — bit-identical outputs
-    # (tests/test_edt_gate.py + tpu_sanity on device), cost scales with
-    # change volume instead of canvas volume.  canvas_edt + 3-D canvases
-    # only (Z==1 excluded); under a mesh the gate slices y lanes only
-    # (batch_edt_sharded_slab — x stays the sharded axis).
-    # DEFAULT True (flipped on the round-2 evidence protocol): compiler-
-    # audited slab traffic 0.17-0.45x of the full EDT at the menu sizes
-    # real frames take (bench_artifacts/hlo_gate_audit.jsonl), aliasing
-    # verified intact through the switch (frame alias/temp unchanged),
-    # neutral-or-better interleaved A/B in a ~3x-throttled window
-    # (+1.5-2.3%, bench_artifacts/gate_ab_*.jsonl; throttled windows cap
-    # duty cycle, so pass cuts register only quiet — docs/PERF.md §1).
-    # Revert check: a quiet-window bench_edt_gate_ab showing a regression
-    # (quiet_window_watch payload #1).
+    # Change-gated canvas EDT: per frame, recompute the exact EDT only over
+    # the bounding slab of voxels this frame's occupancy changes can affect
+    # (models/pipeline.py::_gated_canvas_merge), splicing unchanged state
+    # through — bit-identical outputs (tests/test_edt_gate.py), cost scales
+    # with change volume instead of canvas volume.  canvas_edt + 3-D
+    # canvases only (Z==1 excluded); under a mesh the gate slices y lanes
+    # only (batch_edt_sharded_slab — x stays the sharded axis).
     edt_gate: bool = True
-    # canvas-volume floor for the gate: small canvases are sub-ms already
-    # and the gated switch compiles len(menu)+1 EDT pipelines — below this
-    # many voxels the gate is skipped.  256000 = the smallest shipped
-    # preset's canvas (uav_raycast_fine, 80x80x40), so every preset gates
-    # while the CPU test suite's size-reduced configs (<= ~250k) stay on
-    # the single-EDT path; tests that pin the gate itself set 0
+    # canvas-volume floor for the gate: the gated switch compiles
+    # len(menu)+1 EDT pipelines, so small canvases skip it.  256000 = the
+    # smallest shipped preset's canvas (uav_raycast_fine, 80x80x40), so
+    # every preset gates while the CPU test suite's size-reduced configs
+    # (<= ~250k) stay on the single-EDT path; tests that pin the gate
+    # itself set 0
     edt_gate_min_vox: int = 256000
     # Slab-size ladder for the gated EDT, as (num, den) canvas fractions
-    # per x/y axis (None = pipeline.DEFAULT_MENU_FRACS).  The measured
-    # affected-slab distributions (examples/probe_gate_slab.py) set the
-    # default; workloads whose bboxes straddle a rung can add one (e.g.
-    # ((3,16),(5,16),(3,8),(5,8)) — VERDICT r4 item 8's depthcam candidate,
-    # A/B via examples/bench_gate_rung_ab.py).
+    # per x/y axis (None = pipeline.DEFAULT_MENU_FRACS).  Measured
+    # affected-slab distributions set the default;
+    # workloads whose bboxes straddle a rung can add one.
     edt_gate_menu: tuple | None = None
     # Fraction of the canvas position slack placed AHEAD of the motion
     # direction when a scroll re-places the origin (0.5 = centred; see
@@ -184,20 +146,13 @@ class MapConfig:
     canvas_slack_blocks: int = 0
     # affected-region (P) test granularity for the gate:
     #   "voxel" — one fused full-canvas pass: box-distance vs the stored
-    #             dist_sq of every observed voxel (round-3 original).
+    #             dist_sq of every observed voxel.
     #   "block" — the test runs on the maintained per-cell dist bound
     #             (MapState.dmax_cell, 4x4x4 max over observed voxels): no
     #             full-canvas read at all; the bound is conservative by at
     #             most one cell diameter, so the slab can only grow (by a
     #             few voxels) and outputs stay bit-identical
     #             (tests/test_edt_gate.py).
-    # DEFAULT "block" (round 4, same evidence protocol as edt_gate): the
-    # voxel P pass's full-canvas dist read is audited at -89/-296/-108 MB
-    # frame bytes on cow/depthcam/ugv (hlo_gate_pmode_audit.jsonl); the
-    # combined stack A/B (pmode+p1c vs round-3 default) measured 1.035x
-    # depthcam / 1.023x cow with IDENTICAL gate levels in a semi-quiet
-    # window (gate_stack_ab_20260820_semiquiet.jsonl) and neutral under
-    # throttle.  Revert check: watcher payload gate_stack_ab.
     edt_gate_pmode: str = "block"
     # phase-1 cache for the gated EDT (MapState.p1c): sites change only
     # inside the window's flip bbox on non-scroll frames, so phase 1 is
@@ -205,9 +160,6 @@ class MapConfig:
     # (scroll/teleport frames rebuild in full — the y site axis shifted).
     # Bit-identical outputs (tests/test_edt_gate.py); single-device gated
     # path only (a mesh ignores it).
-    # DEFAULT True (round 4, with edt_gate_pmode above): removes the
-    # full-canvas phase-1 rescan + one packed reshard from steady-state
-    # frames (~2.5 passes, audited in hlo_traffic_audit); stack A/B above.
     edt_p1_cache: bool = True
     max_relax_iters: Optional[int] = None  # cap on fixed-point sweeps (None=auto)
     stream_max_blocks: Optional[int] = None  # compaction size for D2H streaming
@@ -227,14 +179,6 @@ class MapConfig:
         if self.merge_mode not in ("canvas_edt", "relax"):
             raise ValueError(f"merge_mode {self.merge_mode!r} not in "
                              "('canvas_edt', 'relax')")
-        # lazy import: single source of truth, no import cycle at load time
-        from ..ops.edt_batch import _ENV_VARIANTS
-        if self.edt_env_variant not in _ENV_VARIANTS:
-            raise ValueError(f"edt_env_variant {self.edt_env_variant!r} "
-                             f"not in {sorted(_ENV_VARIANTS)}")
-        if self.edt_phase1 not in ("xla", "pallas"):
-            raise ValueError(f"edt_phase1 {self.edt_phase1!r} not in "
-                             "('xla', 'pallas')")
         if self.edt_gate_pmode not in ("voxel", "block"):
             raise ValueError(f"edt_gate_pmode {self.edt_gate_pmode!r} not in "
                              "('voxel', 'block')")
@@ -412,11 +356,8 @@ def depthcam_config(**overrides) -> MapConfig:
         cutoff_dist=6.0,
         max_blocks=11997,
         display_loc_edt=True,
-        # +1 deliberate hysteresis block: 3x fewer scrolls at 1.12x canvas
-        # volume — measured 1.139x end-to-end, all passes consistent
-        # (bench_artifacts/slack_ab_20260821.jsonl).  cow-class canvases
-        # LOSE from the same knob (0.968x: their volume penalty is 1.22x
-        # and the gate's steady slabs scale with it), so this is per-case.
+        # +1 deliberate hysteresis block: fewer scrolls at 1.12x canvas
+        # volume (per-case: cow-class canvases pay 1.22x volume for it)
         canvas_slack_blocks=1,
     )
     return cfg.replace(**overrides)

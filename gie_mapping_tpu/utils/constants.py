@@ -1,4 +1,4 @@
-"""Shared constants of the GIE-TPU mapping engine.
+"""Shared constants of the GIE mapping engine.
 
 Semantics mirror the reference engine's voxel taxonomy and sentinels
 (/root/reference/include/map_structure/local_batch.h:7-10,

@@ -1,6 +1,6 @@
 """Rigid transforms and voxel-grid frame conversions.
 
-TPU-native counterpart of the reference's SE3/Projection substrate
+Counterpart of the reference's SE3/Projection substrate
 (/root/reference/include/cuda_toolkit/se3.cuh, projection.h:6-33) and of the
 LocMap frame math (/root/reference/include/map_structure/local_batch.h:128-301).
 
@@ -13,8 +13,8 @@ Coordinate frames:
   * loc  — glb minus the window pivot ``pvt`` (scrolling robot-centred window).
   * canvas — glb minus the canvas origin (window inflated by the EDT cutoff,
            block-aligned); replaces the reference's packed "wave range" frame
-           (local_batch.h:159-166) — no bit packing is needed because the
-           TPU build never does packed 64-bit atomics.
+           (local_batch.h:159-166) — no bit packing is needed because
+           this engine never does packed 64-bit atomics.
 """
 from __future__ import annotations
 
@@ -73,6 +73,19 @@ def rot_to_quat(R):
     return (q / np.linalg.norm(q)).astype(np.float32)
 
 
+def _matmul(a, b):
+    """a @ b in full float32.  The precision is required: at default
+    precision a GPU may run a float32 product in TF32 (about 3 decimal
+    digits), a millimetre error at 8 m that moves points across voxel
+    boundaries and makes the map differ from the CPU's."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
+def rigid_transform(pts, rot, trans):
+    """pts @ rot.T + trans (sensor -> world) in full float32 (see _matmul)."""
+    return _matmul(pts, rot.T) + trans
+
+
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class Projection:
@@ -86,10 +99,10 @@ class Projection:
     trans: jnp.ndarray  # (3,) float32, sensor origin in world
 
     def l2g(self, pts):
-        return pts @ self.rot.T + self.trans
+        return rigid_transform(pts, self.rot, self.trans)
 
     def g2l(self, pts):
-        return (pts - self.trans) @ self.rot
+        return _matmul(pts - self.trans, self.rot)
 
     @property
     def origin(self):
@@ -123,8 +136,8 @@ class Projection:
         sensor is the camera, so proj_cam = proj_vicon.compose_matrix(T_V_C).
         """
         T = np.asarray(T, np.float32)
-        new_rot = self.rot @ jnp.asarray(T[:3, :3])
-        new_trans = self.rot @ jnp.asarray(T[:3, 3]) + self.trans
+        new_rot = _matmul(self.rot, jnp.asarray(T[:3, :3]))
+        new_trans = _matmul(self.rot, jnp.asarray(T[:3, 3])) + self.trans
         return Projection(rot=new_rot, trans=new_trans)
 
 

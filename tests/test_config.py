@@ -68,5 +68,5 @@ def test_invalid_enum_values_rejected():
 
     with _pytest.raises(ValueError, match="merge_mode"):
         MapConfig(merge_mode="bogus")
-    with _pytest.raises(ValueError, match="edt_env_variant"):
-        MapConfig(edt_env_variant="bogus")
+    with _pytest.raises(ValueError, match="edt_gate_pmode"):
+        MapConfig(edt_gate_pmode="bogus")

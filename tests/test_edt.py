@@ -75,7 +75,7 @@ def test_edt_plane_obstacle():
 
 def test_lower_envelope_matches_bruteforce(rng):
     fsq = rng.integers(0, 100, size=(17, 5)).astype(np.int32)
-    best, arg = lower_envelope(jnp.asarray(fsq), chunk=4)
+    best, arg = lower_envelope(jnp.asarray(fsq))
     x = np.arange(17)[:, None, None]
     i = np.arange(17)[None, :, None]
     cand = (x - i) ** 2 + fsq[None, :, :]
@@ -91,8 +91,8 @@ def test_batch_edt_zmajor_off_matches():
     occ = rng.random(shape) < 0.05
     glb = jnp.asarray(np.where(occ, 2, 0).astype(np.int8))
     mw = sum(shape)
-    a = batch_edt(glb, max_width=mw, pallas=False)
-    b = batch_edt(glb, max_width=mw, pallas=False, zmajor=False)
+    a = batch_edt(glb, max_width=mw)
+    b = batch_edt(glb, max_width=mw, zmajor=False)
     for k in ("dist_sq", "coc", "valid"):
         np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
                                       err_msg=k)

@@ -72,11 +72,11 @@ def _p1c_invariant(g, cfg):
     """After every gated merge the phase-1 cache must hold EXACTLY the
     packed phase-1 word of the stored occupancy (p1c_ok is re-established
     each frame: any scroll clears it, the merge's full branch rebuilds)."""
-    from gie_mapping_tpu.ops.edt_batch import phase1_packed_xla
+    from gie_mapping_tpu.ops.edt_batch import phase1_packed
 
     assert bool(g.p1c_ok)
     occ = jnp.asarray(np.asarray(g.vox_type)) == VOX_OCCUPIED
-    want = np.asarray(phase1_packed_xla(occ, sum(cfg.canvas_size)))
+    want = np.asarray(phase1_packed(occ, sum(cfg.canvas_size)))
     np.testing.assert_array_equal(np.asarray(g.p1c), want)
 
 
